@@ -3,7 +3,7 @@
 // The QB3 stream is bit-serial: the position of group k+1 depends on group
 // k's code lengths.  This module performs that serial walk at native speed,
 // emitting per-group metadata (kind / value-code position / rung / common
-// factor) that the TPU then consumes for fully parallel value decoding
+// factor) that the device then consumes for fully parallel value decoding
 // (qb3_tpu/ops/decode.py).  It mirrors qb3_tpu/offsets.py, the portable
 // reference implementation, and is an original design: a flat bit-position
 // cursor with absolute peeks, not a streaming accumulator.

@@ -16,7 +16,6 @@ qb3_encode (QB3encode.cpp:488-574).
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -149,45 +148,20 @@ def unpack_small(img: np.ndarray, h: int, w: int, nb: int) -> np.ndarray:
 def _fast_kernel(shape, npdtype, order, cband, skipstep, n_words,
                  maxbits=None):
     """maxbits: optional tighter static bound on the per-group bit length
-    (e.g. the max of a known stream's glens, rounded up) — sizes the pack
-    kernel's slab/window to the data instead of the dtype worst case, the
-    encode-side analog of the decode kernels' glens-derived R.  Any value
+    (e.g. the max of a known stream's glens, rounded up) — sizes the pack's
+    slab width to the data instead of the dtype worst case.  Any value
     >= the stream's true max group length is exact; the default is the
     dtype bound."""
-    from .ops.bitpack import group_bits_bound, pack_groups_auto
+    from .ops.bitpack import group_bits_bound, pack_groups
     from .ops.encode import encode_fast_blocks
 
-    tbits = np.dtype(npdtype).itemsize * 8
     if maxbits is None:
-        maxbits = group_bits_bound(tbits, best=False)
-    h, w, nb = shape
-    # experimental image-layout phase A + fused relayout/pack kernel
-    # (ops/encode_image.py + ops/encode_pallas.py): byte-exact, but on this
-    # XLA/relay generation it measures at or below the block path (see
-    # doc/DESIGN.md "image-layout encode ablation"), so it stays opt-in
-    if (os.environ.get("QB3_ENC_FUSED") and tbits >= 16
-            and h % 4 == 0 and w % 4 == 0 and ((w // 4) * nb) % 128 == 0
-            and jax.default_backend() == "tpu"):
-        from .ops.encode_image import phase_a_image
-        from .ops.encode_pallas import encode_pack_image
-
-        def run_fused(img, entry_prev, entry_runbits):
-            o = phase_a_image(img, entry_prev, entry_runbits, order, cband,
-                              skipstep)
-            words, total, glen16 = encode_pack_image(
-                o["m_lo"], o["m_hi"], o["rung"].reshape(-1), o["gkind"],
-                o["prefix_code"].reshape(-1), o["prefix_len"].reshape(-1),
-                o["glen"], tbits, n_words, maxbits, w // 4, nb, order)
-            return (words, total, o["exit_prev"].astype(img.dtype),
-                    o["exit_runbits"], glen16, o["rung"])
-
-        return jax.jit(run_fused)
-
+        maxbits = group_bits_bound(np.dtype(npdtype).itemsize * 8, best=False)
     def run(img, entry_prev, entry_runbits):
         codes, lens, exit_prev, exit_runbits, rung = encode_fast_blocks(
             img, entry_prev, entry_runbits, order, cband, skipstep,
             with_rungs=True)
-        words, total, glen = pack_groups_auto(codes, lens, n_words, maxbits)
+        words, total, glen = pack_groups(codes, lens, n_words, maxbits)
         return words, total, exit_prev, exit_runbits, glen, rung
 
     return jax.jit(run)
@@ -195,7 +169,7 @@ def _fast_kernel(shape, npdtype, order, cband, skipstep, n_words,
 
 @functools.lru_cache(maxsize=64)
 def _best_kernel(shape, npdtype, order, cband, n_words, maxbits=None):
-    from .ops.bitpack import group_bits_bound, pack_groups_auto
+    from .ops.bitpack import group_bits_bound, pack_groups
     from .ops.encode_best import encode_best_blocks
 
     if maxbits is None:
@@ -205,7 +179,7 @@ def _best_kernel(shape, npdtype, order, cband, n_words, maxbits=None):
         (codes, lens, exit_prev, exit_runbits, exit_cf,
          meta16, cfv, post_run, pcf_in) = encode_best_blocks(
             img, entry_prev, entry_runbits, entry_cf, order, cband)
-        words, total, glen = pack_groups_auto(codes, lens, n_words, maxbits)
+        words, total, glen = pack_groups(codes, lens, n_words, maxbits)
         return (words, total, exit_prev, exit_runbits, exit_cf, glen, meta16,
                 cfv, post_run, pcf_in)
 
@@ -495,8 +469,8 @@ def _parse_best_sidecar(buf: bytes, ngroups: int):
 
 def _indexed_nreg(glens: np.ndarray, tbits: int) -> int:
     """Register-window word count from the stream's ACTUAL max group span
-    (the format-worst count — 36 words for u64 — prices the one-hot gather
-    and the select chains; bucketed to limit recompiles)."""
+    (the format-worst count, 36 words for u64, lengthens every select
+    chain; bucketed to limit recompiles)."""
     from .ops.decode import _NREG_IX
 
     if glens.size == 0:
@@ -505,32 +479,9 @@ def _indexed_nreg(glens: np.ndarray, tbits: int) -> int:
     return min(_NREG_IX[tbits], max(4, -(-need // 4) * 4))
 
 
-def _fused_ix_params(glens: np.ndarray, tbits: int, nbands: int = 1):
-    """Static params for the fused window-build walk (fusedwin_pallas), or
-    None off-TPU / for empty sidecars.  nbands sizes the window for the
-    in-kernel parse's grid tile (pick_g_blk; non-power-of-two band counts
-    use larger tiles so the lane->band map stays static)."""
-    if glens.size == 0 or jax.default_backend() != "tpu":
-        return None
-    from .ops.fusedwin_pallas import fused_params, pick_g_blk
-
-    return fused_params(glens, tbits, pick_g_blk(nbands) or 1024)
-
-
-def _indexed_window_R(glens: np.ndarray, tbits: int, G: int = 128) -> int:
-    """Window word count for the register gather (ops/gather.py), from the
-    actual per-tile spans in the sidecar (bucketed to limit recompiles)."""
-    nreg = {8: 8, 16: 12, 32: 20, 64: 36}[tbits]
-    bits = np.concatenate([[0], np.cumsum(glens.astype(np.int64))])
-    starts = bits[:-1:G] // 32
-    spans = np.diff(np.concatenate([starts, [bits[-1] // 32 + 1]]))
-    R = int(spans.max()) + nreg + 130
-    return max(256, -(-R // 256) * 256)
-
-
 @functools.lru_cache(maxsize=64)
-def _decode_kernel_indexed(nblocks, nbands, h, w, order, cband, apply_step, npdtype, n_words,
-                           R=None, nreg=None, fused=None):
+def _decode_kernel_indexed(nblocks, nbands, h, w, order, cband, apply_step,
+                           npdtype, n_words, nreg=None):
     from .constants import ubits_for
     from .ops.decode import reconstruct
 
@@ -541,9 +492,7 @@ def _decode_kernel_indexed(nblocks, nbands, h, w, order, cband, apply_step, npdt
     def run(words64, glens, entry_prev):
         from .ops.decode import decode_indexed_narrow
         g = decode_indexed_narrow(words64, glens, nblocks, nbands,
-                                  apply_step,
-                                  jax.default_backend() == "tpu", tbits, R,
-                                  nreg=nreg, fused=fused)
+                                  apply_step, tbits, nreg=nreg)
         g = g.reshape(nblocks, nbands, B2)
         img, exit_prev = reconstruct(g, entry_prev, h, w, nbands, order, cband, out_dtype)
         return img, exit_prev
@@ -571,37 +520,18 @@ def _decode_kernel_chunked_best(nblocks, nbands, h, w, order, cband,
     return jax.jit(run)
 
 
-def _ic_static_params(starts: np.ndarray, total: int, uns_dt):
-    """Static (maxw, R) for the fused Pallas chunk walk, or (None, None)
-    when the XLA walk applies (non-u8, or no TPU backend)."""
-    return _ic_static_params_flat(starts, np.diff(np.append(starts, total)),
-                                  uns_dt)
-
-
-def _ic_static_params_flat(starts: np.ndarray, spans: np.ndarray, uns_dt):
-    """_ic_static_params over an explicit span list (the flat multi-tile
-    layout has inter-tile gaps, so spans != diff(starts))."""
-    if np.dtype(uns_dt).itemsize > 2 or jax.default_backend() != "tpu":
-        return None, None
-    from .ops.chunkwalk_pallas import ic_maxw, ic_window_R
-
-    maxw = ic_maxw(spans)
-    return maxw, ic_window_R(starts, maxw)
-
-
 @functools.lru_cache(maxsize=64)
 def _decode_kernel_chunked(nblocks, nbands, h, w, order, cband, apply_step,
-                           npdtype, n_words, k_blocks, maxw=None, R=None):
+                           npdtype, n_words, k_blocks):
     from .ops.decode import reconstruct
-    from .ops.decode_chunked import decode_chunked_auto
+    from .ops.decode_chunked import decode_chunked
 
     out_dtype = np.dtype(npdtype)
     tbits = out_dtype.itemsize * 8
 
     def run(words64, starts, entry_rungs, entry_prev):
-        g = decode_chunked_auto(words64, starts, entry_rungs, k_blocks,
-                                nblocks, nbands, apply_step, tbits,
-                                maxw, R, use_pallas=maxw is not None)
+        g = decode_chunked(words64, starts, entry_rungs, k_blocks, nblocks,
+                           nbands, apply_step, tbits)
         g = g.reshape(nblocks, nbands, B2)
         img, exit_prev = reconstruct(g, entry_prev, h, w, nbands, order,
                                      cband, out_dtype)
@@ -610,20 +540,9 @@ def _decode_kernel_chunked(nblocks, nbands, h, w, order, cband, apply_step,
     return jax.jit(run)
 
 
-def _window_R_from_pos(val_pos, tbits: int, G: int = 128) -> int:
-    """Window word count for decode_groups_fused from actual group starts."""
-    nreg = 8 if tbits == 8 else 14
-    b = np.asarray(val_pos, np.int64).reshape(-1) >> 5
-    n = b.shape[0]
-    starts = (b[::G] >> 7) << 7
-    last = b[np.minimum(np.arange(len(starts)) * G + G - 1, n - 1)]
-    R = int((last - starts).max()) + nreg + 2
-    return max(256, -(-R // 256) * 256)
-
-
 @functools.lru_cache(maxsize=64)
 def _decode_kernel(nblocks, nbands, h, w, order, cband, apply_step, npdtype,
-                   n_words, R=None):
+                   n_words):
     from .ops.decode import decode_groups, decode_groups_fused, reconstruct
 
     out_dtype = np.dtype(npdtype)
@@ -632,8 +551,7 @@ def _decode_kernel(nblocks, nbands, h, w, order, cband, apply_step, npdtype,
     def run(words64, kind, val_pos, vrung, cf, entry_prev):
         if tbits <= 16:
             g = decode_groups_fused(words64, kind, val_pos, vrung, cf,
-                                    apply_step, tbits,
-                                    jax.default_backend() == "tpu", R)
+                                    apply_step, tbits)
         else:
             g, _ = decode_groups(words64, kind, val_pos, vrung, cf, apply_step)
         g = g.reshape(nblocks, nbands, B2)
@@ -733,8 +651,7 @@ class Decoder:
         n_words = 1 << max(4, int(np.ceil(np.log2(len(words)))))
         wpad = np.zeros(n_words, np.uint64)
         wpad[: len(words)] = words
-        # u32 carrier: XLA's in-graph u64->u32 bitcast is a slow relayout
-        # copy on TPU (ops/bitutils.words_u32), so the payload ships as u32
+        # the kernels read the payload as u32 words (ops/bitutils.words_u32)
         wpad32 = wpad.view(np.uint32)
 
         if info.index_chunked is not None and is_fast_mode(info.mode):
@@ -742,11 +659,9 @@ class Decoder:
             meta = parse_ic(info.index_chunked, nblocks, nb)
             if meta is not None:
                 k, starts, entry, total = meta
-                maxw, R = _ic_static_params(starts, total, uns_dt)
                 kern = _decode_kernel_chunked(
                     nblocks, nb, h, w, order, tuple(info.cband),
-                    info.mode != Mode.FTL, np.dtype(uns_dt).name, n_words, k,
-                    maxw, R)
+                    info.mode != Mode.FTL, np.dtype(uns_dt).name, n_words, k)
                 img, _ = kern(jnp.asarray(wpad32),
                               jnp.asarray(starts.astype(np.int32)),
                               jnp.asarray(entry),
@@ -777,12 +692,10 @@ class Decoder:
                     int(cand.astype(np.int64).sum()) < 1 << 31:
                 glens = cand.astype(np.int32)
         if glens is not None:
-            tb = np.dtype(uns_dt).itemsize * 8
-            R = _indexed_window_R(glens, tb)
             kern = _decode_kernel_indexed(
                 nblocks, nb, h, w, order, tuple(info.cband),
-                info.mode != Mode.FTL, np.dtype(uns_dt).name, n_words, R,
-                _indexed_nreg(glens, tb), _fused_ix_params(glens, tb, nb))
+                info.mode != Mode.FTL, np.dtype(uns_dt).name, n_words,
+                _indexed_nreg(glens, np.dtype(uns_dt).itemsize * 8))
             img, _ = kern(jnp.asarray(wpad32), jnp.asarray(glens),
                           jnp.zeros(nb, dtype=jnp.uint64))
             self.decode_path = "ix"
@@ -793,10 +706,8 @@ class Decoder:
             meta = _parse_best_sidecar(info.index_best, nblocks * nb)
             if meta is not None:
                 kind, val_pos, vrung, cf = meta
-                tb = np.dtype(uns_dt).itemsize * 8
-                R = _window_R_from_pos(val_pos, tb) if tb <= 16 else None
                 kern = _decode_kernel(nblocks, nb, h, w, order, tuple(info.cband),
-                                      True, np.dtype(uns_dt).name, n_words, R)
+                                      True, np.dtype(uns_dt).name, n_words)
                 img, _ = kern(jnp.asarray(wpad32), jnp.asarray(kind),
                               jnp.asarray(val_pos), jnp.asarray(vrung),
                               jnp.asarray(cf), jnp.zeros(nb, dtype=jnp.uint64))
@@ -814,11 +725,9 @@ class Decoder:
         else:
             meta = parse_offsets(data, nblocks, nb, np.dtype(uns_dt).itemsize, info.mode)
             self.decode_path = "python-walk"
-        tb = np.dtype(uns_dt).itemsize * 8
-        R = _window_R_from_pos(meta["val_pos"], tb) if tb <= 16 else None
         kern = _decode_kernel(nblocks, nb, h, w, order, tuple(info.cband),
                               info.mode != Mode.FTL, np.dtype(uns_dt).name,
-                              n_words, R)
+                              n_words)
         img, _ = kern(
             jnp.asarray(wpad32),
             jnp.asarray(meta["kind"].reshape(-1)),

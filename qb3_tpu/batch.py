@@ -1,8 +1,8 @@
 """Batched multi-tile encode/decode: many same-shape rasters per dispatch.
 
-The production shape for TPU serving (BASELINE config 4: tile pyramids,
-8-band Landsat scenes): one kernel launch encodes/decodes a whole batch of
-tiles, amortizing dispatch and keeping the chip busy.  Each tile is an
+The serving shape (BASELINE config 4: tile pyramids, 8-band Landsat
+scenes): one kernel launch encodes/decodes a whole batch of tiles,
+amortizing dispatch and keeping the device busy.  Each tile is an
 independent QB3 stream (fresh band state), identical to encoding it alone.
 """
 
@@ -17,13 +17,13 @@ import numpy as np
 from . import container
 from .api import DT_FROM_NP, NP_FROM_DT, UNSIGNED, default_cband, max_encoded_size
 from .errors import QB3ShapeError
-from .constants import B, HILBERT, B2, DType, Mode, ubits_for
+from .constants import B, HILBERT, B2, DType, Mode
 
 
 @functools.lru_cache(maxsize=32)
 def _batch_encode_kernel(n, shape, npdtype, order, cband, skipstep, n_words,
                          maxbits=None):
-    from .ops.bitpack import group_bits_bound, pack_groups_auto
+    from .ops.bitpack import group_bits_bound, pack_groups
     from .ops.encode import encode_fast_blocks
 
     if maxbits is None:
@@ -36,7 +36,7 @@ def _batch_encode_kernel(n, shape, npdtype, order, cband, skipstep, n_words,
         codes, lens, _, _, rung = encode_fast_blocks(img, zp, zr, order, cband,
                                                      skipstep, with_rungs=True,
                                                      lanewise=True)
-        words, total, glen = pack_groups_auto(codes, lens, n_words, maxbits)
+        words, total, glen = pack_groups(codes, lens, n_words, maxbits)
         return words, total, glen, rung
 
     return jax.jit(jax.vmap(one))
@@ -48,9 +48,8 @@ def _batch_encode_kernel_ic(n, shape, npdtype, order, cband, skipstep,
     """Batch encode emitting the "ic" sidecar pieces ON DEVICE: per-chunk
     bit spans (segment sums of glens) and entry rung state (every k-th
     block's runbits).  The host then fetches 14 KB/tile of sidecar instead
-    of the full per-group tensors (~300 KB/tile) — the host-to-host
-    pipeline is transfer-bound (doc/DESIGN.md)."""
-    from .ops.bitpack import group_bits_bound, pack_groups_auto
+    of the full per-group tensors (~300 KB/tile)."""
+    from .ops.bitpack import group_bits_bound, pack_groups
     from .ops.encode import encode_fast_blocks
 
     maxbits = group_bits_bound(np.dtype(npdtype).itemsize * 8, best=False)
@@ -64,7 +63,7 @@ def _batch_encode_kernel_ic(n, shape, npdtype, order, cband, skipstep,
         codes, lens, _, _, rung = encode_fast_blocks(img, zp, zr, order, cband,
                                                      skipstep, with_rungs=True,
                                                      lanewise=True)
-        words, total, glen = pack_groups_auto(codes, lens, n_words, maxbits)
+        words, total, glen = pack_groups(codes, lens, n_words, maxbits)
         g = jnp.zeros(nchunks * k_blocks * nb, jnp.int32)
         g = g.at[: nblocks * nb].set(glen.astype(jnp.int32))
         spans = g.reshape(nchunks, -1).sum(axis=1).astype(jnp.uint32)
@@ -81,13 +80,8 @@ def _batch_best_kernel(n, shape, npdtype, order, cband, n_words):
     """Best-mode batch encode (plain vmap; keep best batches small).
 
     The index-trial intermediates ((nblocks, C, 16, 16) eq tensors,
-    encode_best.py) scale HBM with the batch (110 MB/s at vmap-32, round
-    2), and both bounded-memory reformulations fail on this platform:
-    lax.map over vmap-4 chunks compiles for > 9 minutes; lax.map over
-    single tiles OOMs XLA's scoped VMEM in the loop-body reduce-window.
-    The serving shape for best mode is therefore QUEUED SINGLE DISPATCHES
-    (async pipeline), measured 198-206 MB/s vs the reference's 160.93."""
-    from .ops.bitpack import group_bits_bound, pack_groups_auto
+    encode_best.py) scale device memory with the batch."""
+    from .ops.bitpack import group_bits_bound, pack_groups
     from .ops.encode_best import encode_best_blocks
 
     maxbits = group_bits_bound(np.dtype(npdtype).itemsize * 8, best=True)
@@ -98,7 +92,7 @@ def _batch_best_kernel(n, shape, npdtype, order, cband, n_words):
         zr = jnp.zeros(nb, dtype=jnp.int32)
         codes, lens, _, _, _, meta16, cfv, _, _ = encode_best_blocks(
             img, zp, zr, zp, order, cband)
-        words, total, glen = pack_groups_auto(codes, lens, n_words, maxbits)
+        words, total, glen = pack_groups(codes, lens, n_words, maxbits)
         return words, total, glen, meta16, cfv
 
     return jax.jit(jax.vmap(one))
@@ -106,7 +100,7 @@ def _batch_best_kernel(n, shape, npdtype, order, cband, n_words):
 
 @functools.lru_cache(maxsize=32)
 def _batch_best_decode_kernel(n, nblocks, nbands, h, w, order, cband,
-                              npdtype, n_words, R=None, apply_step=True):
+                              npdtype, n_words, apply_step=True):
     """Flat multi-tile best-mode decode: val_pos already carries per-tile
     word bases, so one decode_groups_fused pass covers the whole batch."""
     from .ops.decode import decode_groups_fused, reconstruct_batch
@@ -116,8 +110,7 @@ def _batch_best_decode_kernel(n, nblocks, nbands, h, w, order, cband,
 
     def run(words64_flat, kind, val_pos, vrung, cf):
         g = decode_groups_fused(words64_flat, kind, val_pos, vrung, cf,
-                                apply_step, tbits,
-                                jax.default_backend() == "tpu", R)
+                                apply_step, tbits)
         g = g.reshape(n, nblocks, nbands, B2)
         return reconstruct_batch(g, h, w, nbands, order, cband, out_dtype)
 
@@ -126,22 +119,21 @@ def _batch_best_decode_kernel(n, nblocks, nbands, h, w, order, cband,
 
 @functools.lru_cache(maxsize=32)
 def _batch_decode_kernel_chunked(n, nblocks, nbands, h, w, order, cband,
-                                 apply_step, npdtype, n_words, k_blocks,
-                                 maxw=None, R=None):
+                                 apply_step, npdtype, n_words, k_blocks):
     """Flat multi-tile self-contained decode: tiles' chunks concatenate into
     one chunk-parallel walk (starts carry per-tile word bases), so the whole
-    batch rides one Pallas chunk-walk dispatch (chunkwalk_pallas.py)."""
+    batch rides one dispatch."""
     from .ops.decode import reconstruct_batch
-    from .ops.decode_chunked import decode_chunked_auto
+    from .ops.decode_chunked import decode_chunked
 
     out_dtype = np.dtype(npdtype)
     tbits = out_dtype.itemsize * 8
     nchunks_per = -(-nblocks // k_blocks)
 
     def run(words64_flat, starts, entry_rungs):
-        g = decode_chunked_auto(words64_flat, starts, entry_rungs, k_blocks,
-                                n * nchunks_per * k_blocks, nbands, apply_step,
-                                tbits, maxw, R, use_pallas=maxw is not None)
+        g = decode_chunked(words64_flat, starts, entry_rungs, k_blocks,
+                           n * nchunks_per * k_blocks, nbands, apply_step,
+                           tbits)
         g = g.reshape(n, nchunks_per * k_blocks, nbands, B2)[:, :nblocks]
         return reconstruct_batch(g, h, w, nbands, order, cband, out_dtype)
 
@@ -150,12 +142,9 @@ def _batch_decode_kernel_chunked(n, nblocks, nbands, h, w, order, cband,
 
 @functools.lru_cache(maxsize=32)
 def _batch_decode_kernel(n, nblocks, nbands, h, w, order, cband, apply_step,
-                         npdtype, n_words, R=None, tile_words32=0, nreg=None,
-                         fused=None):
+                         npdtype, n_words, tile_words32=0, nreg=None):
     """Flat multi-tile indexed decode: one gather + wavefront over the
-    concatenated batch (ntiles * nblocks * nbands groups).  vmapping the
-    single-tile kernel instead serializes the gather (measured 41 MB/s/tile
-    vs 400+ single-dispatch on v5e)."""
+    concatenated batch (ntiles * nblocks * nbands groups)."""
     from .ops.decode import decode_indexed_narrow, reconstruct_batch
 
     out_dtype = np.dtype(npdtype)
@@ -163,10 +152,8 @@ def _batch_decode_kernel(n, nblocks, nbands, h, w, order, cband, apply_step,
 
     def run(words64_flat, glens_flat):
         g = decode_indexed_narrow(words64_flat, glens_flat, nblocks, nbands,
-                                  apply_step, jax.default_backend() == "tpu",
-                                  tbits, R, ntiles=n,
-                                  tile_words32=tile_words32, nreg=nreg,
-                                  fused=fused)
+                                  apply_step, tbits, ntiles=n,
+                                  tile_words32=tile_words32, nreg=nreg)
         g = g.reshape(n, nblocks, nbands, B2)
         return reconstruct_batch(g, h, w, nbands, order, cband, out_dtype)
 
@@ -177,42 +164,11 @@ def _flat_tile_layout(wlists):
     """Concatenate per-tile u64 payload words at a fixed 64-word-aligned
     stride -> (flat words (n, tw64) u64, tile stride in u32 words)."""
     tw64 = max(len(x) for x in wlists) + 2
-    tw64 = -(-tw64 // 64) * 64  # 128-u32-row alignment for the DMA gather
+    tw64 = -(-tw64 // 64) * 64  # 512-byte aligned tile stride
     flat = np.zeros((len(wlists), tw64), np.uint64)
     for j, x in enumerate(wlists):
         flat[j, : len(x)] = x
     return flat, tw64 * 2
-
-
-def _flat_fused_params(glens2d: np.ndarray, tile_words32: int, tbits: int,
-                       nbands: int = 1):
-    """fusedwin_pallas static params over the flat layout, or None off-TPU."""
-    if jax.default_backend() != "tpu" or glens2d.size == 0:
-        return None
-    from .ops.fusedwin_pallas import fused_params_from_offsets, pick_g_blk
-
-    n = glens2d.shape[0]
-    ends = np.cumsum(glens2d.astype(np.int64), axis=1)
-    tbase = (np.arange(n, dtype=np.int64) * tile_words32 * 32)[:, None]
-    goff = (ends - glens2d + tbase).reshape(-1)
-    return fused_params_from_offsets(goff, int(glens2d.max(initial=0)), tbits,
-                                     pick_g_blk(nbands) or 1024)
-
-
-def _flat_window_R(glens2d: np.ndarray, tile_words32: int, tbits: int,
-                   G: int = 128) -> int:
-    """Gather window size over the flat layout (incl. cross-tile jumps)."""
-    from .ops.decode import _NREG_IX
-
-    nreg = _NREG_IX[tbits]
-    n = glens2d.shape[0]
-    ends = np.cumsum(glens2d.astype(np.int64), axis=1)
-    tbase = (np.arange(n, dtype=np.int64) * tile_words32 * 32)[:, None]
-    b = ((ends - glens2d + tbase).reshape(-1)) >> 5
-    starts = b[::G]
-    last = b[np.minimum(np.arange(len(starts)) * G + G - 1, len(b) - 1)]
-    R = int((last - starts).max()) + nreg + 130
-    return max(256, -(-R // 256) * 256)
 
 
 def encode_tiles(imgs: np.ndarray, mode: int = Mode.FTL, coreband=None,
@@ -308,7 +264,6 @@ def decode_tiles(streams: list[bytes]) -> np.ndarray:
     tb = np.dtype(uns_dt).itemsize * 8
     n = len(streams)
     if chunked and not best:
-        from .api import _ic_static_params_flat
         from .ops.decode_chunked import parse_ic
 
         metas = [parse_ic(i.index_chunked, nblocks, nb) for i in infos]
@@ -319,18 +274,15 @@ def decode_tiles(streams: list[bytes]) -> np.ndarray:
         tbase = (np.arange(n, dtype=np.int64) * tile_words32 * 32)[:, None]
         starts = (np.stack([m[1] for m in metas]) + tbase).reshape(-1)
         entry = np.concatenate([m[2] for m in metas])
-        spans = np.concatenate(
-            [np.diff(np.append(m[1], m[3])) for m in metas])
-        maxw, R = _ic_static_params_flat(starts, spans, uns_dt)
         kern = _batch_decode_kernel_chunked(
             n, nblocks, nb, h, w, order, tuple(i0.cband),
-            i0.mode != Mode.FTL, np.dtype(uns_dt).name, n_words, k, maxw, R)
+            i0.mode != Mode.FTL, np.dtype(uns_dt).name, n_words, k)
         out = np.asarray(kern(jnp.asarray(flat.reshape(-1).view(np.uint32)),
                               jnp.asarray(starts.astype(np.int32)),
                               jnp.asarray(entry)))
         return out.view(np_dt)
     if best:
-        from .api import _parse_best_sidecar, _window_R_from_pos
+        from .api import _parse_best_sidecar
 
         metas = [_parse_best_sidecar(i.index_best, nblocks * nb) for i in infos]
         if any(m is None for m in metas):
@@ -340,24 +292,20 @@ def decode_tiles(streams: list[bytes]) -> np.ndarray:
         val_pos = (np.stack([m[1] for m in metas]) + tbase).reshape(-1)
         vrung = np.stack([m[2] for m in metas]).reshape(-1)
         cf = np.stack([m[3] for m in metas]).reshape(-1)
-        R = _window_R_from_pos(val_pos, tb) if tb <= 16 else None
         kern = _batch_best_decode_kernel(n, nblocks, nb, h, w,
                                          order, tuple(i0.cband),
-                                         np.dtype(uns_dt).name, n_words, R)
+                                         np.dtype(uns_dt).name, n_words)
         out = np.asarray(kern(jnp.asarray(flat.reshape(-1).view(np.uint32)), jnp.asarray(kind),
                               jnp.asarray(val_pos), jnp.asarray(vrung),
                               jnp.asarray(cf)))
         return out.view(np_dt)
     glens = np.stack([
         np.frombuffer(i.index, dtype="<u2").astype(np.int32) for i in infos])
-    R = _flat_window_R(glens, tile_words32, tb)
     from .api import _indexed_nreg
     kern = _batch_decode_kernel(n, nblocks, nb, h, w, order,
                                 tuple(i0.cband), i0.mode != Mode.FTL,
-                                np.dtype(uns_dt).name, n_words, R,
-                                tile_words32, _indexed_nreg(glens, tb),
-                                _flat_fused_params(glens, tile_words32, tb,
-                                                   nb))
+                                np.dtype(uns_dt).name, n_words,
+                                tile_words32, _indexed_nreg(glens, tb))
     out = np.asarray(kern(jnp.asarray(flat.reshape(-1).view(np.uint32)),
                           jnp.asarray(glens.reshape(-1))))
     return out.view(np_dt)

@@ -2,7 +2,7 @@
 
 These mirror the format-level definitions of the reference implementation
 (see /root/reference/QB3lib/QB3common.h:35-36, :185, :193 and QB3lib/QB3.h:34-83)
-but are re-declared here from the format spec (doc/QB3.md) — the TPU engine is a
+but are re-declared here from the format spec (doc/QB3.md) — this engine is a
 from-scratch implementation that emits bit-exact QB3 v2 streams.
 """
 

@@ -59,7 +59,7 @@ def decode_streams(streams: list[bytes], workers: int | None = None):
     import jax
     import jax.numpy as jnp
 
-    from .api import NP_FROM_DT, UNSIGNED, _window_R_from_pos
+    from .api import NP_FROM_DT, UNSIGNED
     from .batch import _batch_best_decode_kernel, _flat_tile_layout
 
     infos = [container.parse_headers(s) for s in streams]
@@ -74,7 +74,6 @@ def decode_streams(streams: list[bytes], workers: int | None = None):
         raise QB3ShapeError("bulk foreign decode requires 4-aligned tiles")
     np_dt = NP_FROM_DT[DType(i0.dtype)]
     uns_dt = UNSIGNED[np.dtype(np_dt).itemsize]
-    tb = np.dtype(uns_dt).itemsize * 8
     nblocks = (h // B) * (w // B)
     order = i0.order or HILBERT
     n = len(streams)
@@ -92,10 +91,9 @@ def decode_streams(streams: list[bytes], workers: int | None = None):
                + tbase).reshape(-1)
     vrung = np.stack([m["vrung"].reshape(-1) for _, m in walked]).reshape(-1)
     cf = np.stack([m["cf"].reshape(-1) for _, m in walked]).reshape(-1)
-    R = _window_R_from_pos(val_pos, tb) if tb <= 16 else None
     kern = _batch_best_decode_kernel(n, nblocks, nb, h, w, order,
                                      tuple(i0.cband),
-                                     np.dtype(uns_dt).name, flat.size, R,
+                                     np.dtype(uns_dt).name, flat.size,
                                      apply_step=i0.mode != Mode.FTL)
     out = kern(jnp.asarray(flat.reshape(-1).view(np.uint32)), jnp.asarray(kind),
                jnp.asarray(val_pos), jnp.asarray(vrung), jnp.asarray(cf))

@@ -3,7 +3,7 @@
 The counterpart of the reference's WASM client decoder (wasm/qb3decapi.cpp,
 post.js): something a thin client can run anywhere to read QB3 streams
 produced by this engine or the reference, using the same parallel wavefront
-design as the TPU path but on NumPy vector ops.
+design as the JAX device path but on NumPy vector ops.
 
     from qb3_tpu import lite
     img, info = lite.decode(stream_bytes)

@@ -1,17 +1,25 @@
 """ctypes bindings for the native helper (native/qb3xs.cpp).
 
 The helper covers the two host-side serial pieces of the codec: the stream
-offset walk that feeds the parallel TPU decoder, and the RLE0 byte post-pass.
-Falls back transparently (offsets.py / rle.py keep portable Python paths).
+offset walk that feeds the parallel device decoder, and the RLE0 byte
+post-pass.  offsets.py / rle.py keep portable Python paths for hosts
+without a C++ toolchain.
 
-Build with:  make -C native
+The library is built for the host that loads it: the first use in a
+process runs ``make -C native``, which does nothing when the library is
+current and rebuilds it when the sources, the CPU or the compiler changed.
+A failed build is reported as a warning with the compiler's output, and the
+portable paths take over.
 """
 
 from __future__ import annotations
 
 import ctypes as ct
+import fcntl
+import functools
 import os
 import subprocess
+import warnings
 
 import numpy as np
 
@@ -19,16 +27,32 @@ _DIR = os.path.join(os.path.dirname(__file__), "..", "native")
 _LIB_PATH = os.path.join(_DIR, "libqb3xs.so")
 
 
-def _load():
-    if not os.path.exists(_LIB_PATH):
-        try:  # best-effort build (toolchain is present in dev images)
-            subprocess.run(["make", "-C", _DIR, "-s"], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+def _build() -> bool:
+    """make -C native, serialized across processes by a file lock."""
+    try:
+        with open(os.path.join(_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            r = subprocess.run(["make", "-C", _DIR, "-s"], capture_output=True,
+                               text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as e:
+        warnings.warn(f"native helper build did not run: {e}")
+        return False
+    if r.returncode != 0:
+        warnings.warn("native helper build failed (make -C native):\n"
+                      + r.stdout + r.stderr)
+        return False
+    return True
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    """The loaded library, built first if needed; None if unavailable."""
+    if not _build():
+        return None
     try:
         lib = ct.CDLL(os.path.abspath(_LIB_PATH))
-    except OSError:
+    except OSError as e:
+        warnings.warn(f"native helper did not load: {e}")
         return None
     lib.qb3xs_parse.restype = ct.c_int64
     lib.qb3xs_parse.argtypes = [
@@ -44,11 +68,8 @@ def _load():
     return lib
 
 
-LIB = _load()
-
-
 def available() -> bool:
-    return LIB is not None
+    return _lib() is not None
 
 
 def parse_offsets_native(payload: bytes, nblocks: int, nbands: int, tsize: int,
@@ -63,7 +84,7 @@ def parse_offsets_native(payload: bytes, nblocks: int, nbands: int, tsize: int,
     buf = np.frombuffer(payload + b"\x00" * 16, np.uint8)  # padded peek window
     erb = np.asarray(entry_runbits, np.int32) if entry_runbits is not None else None
     ecf = np.asarray(entry_cf, np.uint64) if entry_cf is not None else None
-    end = LIB.qb3xs_parse(
+    end = _lib().qb3xs_parse(
         buf.ctypes.data, len(payload), nblocks, nbands, tsize, int(is_ftl),
         erb.ctypes.data if erb is not None else None,
         ecf.ctypes.data if ecf is not None else None,
@@ -81,14 +102,14 @@ def rle0_encode(data: bytes) -> bytes:
     src = np.frombuffer(data, np.uint8)
     # worst case expands 3/2 (every 0xff pair becomes a triple)
     dst = np.zeros(len(data) * 3 // 2 + 16, np.uint8)
-    n = LIB.qb3xs_rle0_encode(src.ctypes.data, len(data), dst.ctypes.data)
+    n = _lib().qb3xs_rle0_encode(src.ctypes.data, len(data), dst.ctypes.data)
     return dst[:n].tobytes()
 
 
 def rle0_decode(data: bytes, expected: int) -> bytes:
     src = np.frombuffer(data, np.uint8)
     dst = np.zeros(expected, np.uint8)
-    n = LIB.qb3xs_rle0_decode(src.ctypes.data, len(data), dst.ctypes.data, expected)
+    n = _lib().qb3xs_rle0_decode(src.ctypes.data, len(data), dst.ctypes.data, expected)
     if n < 0:
         raise ValueError("RLE0 length mismatch")
     return dst.tobytes()
@@ -96,4 +117,4 @@ def rle0_decode(data: bytes, expected: int) -> bytes:
 
 def rle0_size(data: bytes) -> int:
     src = np.frombuffer(data, np.uint8)
-    return int(LIB.qb3xs_rle0_size(src.ctypes.data, len(data)))
+    return int(_lib().qb3xs_rle0_size(src.ctypes.data, len(data)))

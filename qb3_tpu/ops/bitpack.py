@@ -1,21 +1,12 @@
 """Phase B: parallel variable-length bit packing.
 
 Replaces the serial oBits writer (bitstream.h:66-126).  Every symbol's
-absolute bit position is the exclusive prefix sum of the symbol lengths.
-Because positions are monotonically increasing, the target 32-bit word index
-of every symbol is a *sorted* sequence — so instead of a scatter (slow on
-TPU), each output word is reconstructed as a difference of running prefix
-sums at boundaries found by one vectorized binary search:
-
-  contribution streams: a symbol at bit offset o with code c contributes
-      A = (c << (o & 31)) & M32          to word o >> 5
-      B = (c >> (32 - (o & 31)))  & M32  to word (o >> 5) + 1
-      C = (c >> (64 - (o & 31)))         to word (o >> 5) + 2  (u64 codes)
-  out[w] = segsum(A)[w] + segsum(B)[w-1] + segsum(C)[w-2]
-  segsum via cumsum (mod 2^32) + searchsorted over the sorted word indices.
-
-Contributions of different symbols touch disjoint bits, so the per-word sums
-equal the serial stream's ORs exactly.
+absolute bit position is the exclusive prefix sum of the symbol lengths, so
+all symbols can be placed at once.  pack_groups does it in two levels: the
+symbols of each group fold into a few 32-bit words already shifted to the
+group's bit phase, and one scatter-add lands those slabs in the output.
+Contributions of different symbols touch disjoint bits, so the sums equal
+the serial stream's ORs exactly and the order of the adds does not matter.
 
 The stream is little-endian at bit level: bit position p lives in byte p>>3
 at weight 1<<(p&7); uint32 words view as 4 little-endian bytes.
@@ -30,50 +21,6 @@ import numpy as np
 _M32_64 = jnp.uint64(0xFFFFFFFF)
 
 
-def pack_symbols(codes, lens, n_words: int):
-    """Pack a symbol stream into uint32 words.
-
-    codes: (n,) uint32 or uint64, each < 2**lens[i]; lens: (n,) int32.
-    n_words: static output word count (must bound total bits / 32 + 2).
-    Returns (words uint32 (n_words,), total_bits int64 scalar).
-    """
-    wide = codes.dtype == jnp.uint64
-    ends = jnp.cumsum(lens, dtype=jnp.int64)
-    total = ends[-1]
-    offs = ends - lens  # exclusive prefix sum, int64
-    sh = (offs & 31).astype(codes.dtype)
-    widx = (offs >> 5).astype(jnp.int32)
-
-    if wide:
-        t = codes << sh  # low 64 of the (up to 95-bit) shifted code
-        A = (t & _M32_64).astype(jnp.uint32)
-        B = ((codes >> (jnp.uint64(32) - sh)) & _M32_64).astype(jnp.uint32)
-        # sh == 0 -> (codes >> 32) & M32, which the formula above gives; but
-        # C needs a guard: shift by 64 is out of range
-        C = jnp.where(sh == 0, jnp.uint64(0),
-                      codes >> ((jnp.uint64(64) - sh) & 63)).astype(jnp.uint32)
-        streams = (A, B, C)
-    else:
-        t = codes.astype(jnp.uint64) << sh.astype(jnp.uint64)
-        A = (t & _M32_64).astype(jnp.uint32)
-        B = (t >> jnp.uint64(32)).astype(jnp.uint32)
-        streams = (A, B)
-
-    # boundaries: r[w] = number of symbols with word index <= w
-    queries = jnp.arange(n_words, dtype=jnp.int32)
-    r = jnp.searchsorted(widx, queries, side="right").astype(jnp.int32)
-    rm = [r]
-    for _ in range(len(streams) - 1):
-        rm.append(jnp.concatenate([jnp.zeros(1, jnp.int32), rm[-1][:-1]]))
-
-    out = jnp.zeros((n_words,), dtype=jnp.uint32)
-    for s, rk in zip(streams, rm):
-        ps = jnp.concatenate([jnp.zeros(1, jnp.uint32), jnp.cumsum(s, dtype=jnp.uint32)])
-        prev = jnp.concatenate([jnp.zeros(1, jnp.int32), rk[:-1]])
-        out = out + (ps[rk] - ps[prev])
-    return out, total
-
-
 def group_bits_bound(tbits: int, best: bool) -> int:
     """Static bound on one group's emitted bits (prefix + values [+ extras /
     CF header / index uniques])."""
@@ -85,25 +32,6 @@ def group_bits_bound(tbits: int, best: bool) -> int:
         (16 if tbits == 64 else 0) + 8 * (tbits + 2)
 
 
-def _chunked_pack_G(wide: bool, max_group_bits: int, S: int) -> int:
-    """Pack-kernel tile size (groups per grid step), from the round-5 G
-    sweep: u8-class and u64-class symbols run fastest at G=512, u16/u32 at
-    G=256 (15-25% over the old G=128 at every width).  Clamps are
-    empirical Mosaic scoped-vmem limits (the stage-A unroll's live set
-    scales with S * W48 * G): best-mode symbol counts (S > 36) only fit
-    G=256 with a one-word slab row (maxbits <= 160); G=512 at the u64
-    worst-case bound fails allocation, so G*maxbits caps at 448k."""
-    if S > 36:
-        return 256 if max_group_bits <= 160 else 128
-    if wide:
-        pref = 512 if max_group_bits >= 576 else 256
-    else:
-        pref = 512 if max_group_bits <= 192 else 256
-    while pref > 128 and pref * max_group_bits > 448_000:
-        pref //= 2
-    return pref
-
-
 def maxbits_bucket(max_glen: int, tbits: int, best: bool = False) -> int:
     """Tightened static pack bound from a stream's observed max group
     length (e.g. ``max(glens)`` of an ix sidecar), rounded up to 64 bits
@@ -113,41 +41,20 @@ def maxbits_bucket(max_glen: int, tbits: int, best: bool = False) -> int:
 
 
 def pack_groups(codes, lens, n_words: int, max_group_bits: int):
-    """Two-level pack: dense per-group slab fold + one group-level scatter.
+    """Pack (ngroups, S) symbols in stream order into uint32 words.
 
-    codes/lens: (ngroups, S) in stream order; the slab width W is static from
-    the shapes/dtype.  Each group's symbols fold into a W-word slab already
-    shifted to the group's bit phase (off % 32); the slab then lands at word
-    off >> 5 with a single scatter-add of ngroups*W updates — an order of
-    magnitude fewer scatter points than per-symbol placement, with the fold
-    running as pure vector ops.
+    Each group's symbols fold into a W-word slab at the group's bit phase
+    (off % 32); W is static from max_group_bits.  The slab then lands at
+    word off >> 5 with a single scatter-add of ngroups*W updates.
+    Returns (words uint32 (n_words,), total bits, per-group bit lengths).
     """
-    slab, base, glen, total, W = _fold_slabs(codes, lens, max_group_bits)
-    idx = base[:, None] + jnp.arange(W, dtype=jnp.int32)[None, :]
-    out = jnp.zeros((n_words,), dtype=jnp.uint32)
-    out = out.at[idx.reshape(-1)].add(slab.reshape(-1), mode="drop")
-    return out, total, glen.astype(jnp.uint16)
-
-
-def _fold_slabs(codes, lens, max_group_bits: int):
-    """Shared phase-B level 1: per-group symbols -> W-word slabs at the
-    group's bit phase, plus (base word offsets, glen, total bits).
-
-    The scan walks output words, re-reading the symbol streams per word
-    (a symbol-axis scan with the slab as carry was measured WORSE on chip:
-    the (ngroups, W) carry pads to 128 lanes and round-trips HBM every
-    step).  Wide types route to pack_chunks_pallas instead, which keeps the
-    slab in VMEM."""
     wide = codes.dtype == jnp.uint64
-    ngroups, S = codes.shape
     il = jnp.cumsum(lens, axis=1, dtype=jnp.int32)
     glen = il[:, -1]
-    io = il - lens
     gend = jnp.cumsum(glen.astype(jnp.int64))
     total = gend[-1]
     goff = gend - glen
-    phase = (goff & 31).astype(jnp.int32)
-    bitpos = phase[:, None] + io
+    bitpos = (goff & 31).astype(jnp.int32)[:, None] + il - lens
     W = (31 + max_group_bits + 31) // 32
 
     k = bitpos >> 5
@@ -160,6 +67,7 @@ def _fold_slabs(codes, lens, max_group_bits: int):
                        codes >> ((jnp.uint64(64) - sh) & 63)).astype(jnp.uint32)
 
     def jbody(_, j):
+        # slab word j: masked sum over the group's symbols
         acc = jnp.sum(jnp.where(k == j, lo, 0), axis=1, dtype=jnp.uint32)
         acc = acc + jnp.sum(jnp.where(k == j - 1, mid, 0), axis=1, dtype=jnp.uint32)
         if wide:
@@ -169,105 +77,9 @@ def _fold_slabs(codes, lens, max_group_bits: int):
     _, slabs = jax.lax.scan(jbody, None, jnp.arange(W, dtype=jnp.int32))
     slab = jnp.moveaxis(slabs, 0, 1)  # (ngroups, W)
     base = (goff >> 5).astype(jnp.int32)
-    return slab, base, glen, total, W
-
-
-def pack_groups_onehot(codes, lens, n_words: int, max_group_bits: int,
-                       tile_groups: int = 128):
-    """pack_groups with the slab placement as exact int8 one-hot matmuls on
-    the MXU (ops/gather.py place_slabs_onehot)."""
-    from .gather import place_slabs_onehot
-
-    ngroups = codes.shape[0]
-    slab, base, glen, total, W = _fold_slabs(codes, lens, max_group_bits)
-    G = tile_groups
-    pad = (-ngroups) % G
-    if pad:
-        slab = jnp.concatenate([slab, jnp.zeros((pad, W), jnp.uint32)])
-        base = jnp.concatenate([base, jnp.broadcast_to(base[-1], (pad,))])
-    R = -(-((G * max_group_bits) // 32 + W + 128 + 2) // 128) * 128
-    out = place_slabs_onehot(slab, base, n_words, G, W, R)[0, :n_words]
-    return out, total, glen.astype(jnp.uint16)
-
-
-def pack_segmented(codes, lens, n_words: int, max_sym_bits: int, m: int,
-                   pack=None):
-    """Pack with each group's symbol row split into segments of m symbols.
-
-    The slab fold is O(W x S) masked passes; splitting rows shrinks both
-    factors (bit positions are unchanged — segments are just finer
-    prefix-sum granularity, so the stream stays byte-identical).  Returns
-    per-GROUP glens like pack_groups.
-    """
-    n, S = codes.shape
-    pad = (-S) % m
-    if pad:
-        codes = jnp.concatenate(
-            [codes, jnp.zeros((n, pad), codes.dtype)], axis=1)
-        lens = jnp.concatenate(
-            [lens, jnp.zeros((n, pad), lens.dtype)], axis=1)
-    nseg = (S + pad) // m
-    pack = pack or pack_groups
-    words, total, glen_seg = pack(
-        codes.reshape(n * nseg, m), lens.reshape(n * nseg, m),
-        n_words, max_sym_bits * m)
-    glen = jnp.sum(glen_seg.reshape(n, nseg).astype(jnp.int32), axis=1)
-    return words, total, glen.astype(jnp.uint16)
-
-
-def pack_groups_auto(codes, lens, n_words: int, max_group_bits: int):
-    """Backend-aware pack: the Pallas placement kernel on TPU (measured
-    faster than the MXU one-hot placement — the scatter side's diagonal
-    combine erases the matmul win; QB3_PACK=onehot/scatter overrides),
-    the XLA scatter elsewhere.  Wide-type symbol rows (u32/u64: 66-bit
-    codes, W up to 35) pack segmented to cut the O(W x S) fold."""
-    import os
-
-    import jax as _jax
-
-    on_tpu = _jax.default_backend() == "tpu"
-    if on_tpu and os.environ.get("QB3_PACK") == "onehot":
-        return pack_groups_onehot(codes, lens, n_words, max_group_bits)
-    if on_tpu and os.environ.get("QB3_PACK") not in ("scatter", "pallas"):
-        # the fused fold+place kernel (slab stays in VMEM, MXU one-hot
-        # placement) wins at every width (round 4: u8 218 -> 244 single /
-        # 1093 -> 1410 MB/s batch-128, u16 414 -> 608, u64 unchanged) —
-        # the separate fold re-reads S symbol streams W times through HBM
-        from .pack_pallas import pack_groups_chunked
-
-        wide = codes.dtype == jnp.uint64
-        G = _chunked_pack_G(wide, max_group_bits, codes.shape[1])
-        return pack_groups_chunked(codes, lens, n_words, max_group_bits, G=G)
-    if on_tpu and os.environ.get("QB3_PACK") != "scatter":
-        pack = pack_groups_pallas
-    else:
-        pack = pack_groups
-    if max_group_bits > 400 and os.environ.get("QB3_SEG"):
-        # opt-in: a cheaper fold, but measured slower on TPU overall (the
-        # placement grid walks segments sequentially; u64 894 -> 586 MB/s)
-        max_sym = -(-max_group_bits // 16)
-        m = max(3, 192 // max_sym)
-        return pack_segmented(codes, lens, n_words, max_sym, m, pack)
-    return pack(codes, lens, n_words, max_group_bits)
-
-
-def pack_groups_pallas(codes, lens, n_words: int, max_group_bits: int,
-                       tile_groups: int = 64):
-    """pack_groups with the slab placement done by the Pallas kernel
-    (ops/pack_pallas.py) instead of XLA scatter-add.  TPU only.
-    G=64/sub=32 measured fastest on v5e (tools/ablate_encode.py)."""
-    from .pack_pallas import place_slabs
-
-    ngroups, S = codes.shape
-    slab, base, glen, total, W = _fold_slabs(codes, lens, max_group_bits)
-
-    G = tile_groups
-    pad = (-ngroups) % G
-    if pad:
-        slab = jnp.concatenate([slab, jnp.zeros((pad, W), jnp.uint32)])
-        base = jnp.concatenate([base, jnp.broadcast_to(base[-1], (pad,))])
-    R = -(-((G * max_group_bits) // 32 + W + 128 + 2) // 128) * 128
-    out = place_slabs(slab, base, n_words, G, W, R, sub=32)[0, :n_words]
+    idx = base[:, None] + jnp.arange(W, dtype=jnp.int32)[None, :]
+    out = jnp.zeros((n_words,), dtype=jnp.uint32)
+    out = out.at[idx.reshape(-1)].add(slab.reshape(-1), mode="drop")
     return out, total, glen.astype(jnp.uint16)
 
 

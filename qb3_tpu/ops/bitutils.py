@@ -1,6 +1,6 @@
 """Small vectorized bit-manipulation primitives shared by encode/decode.
 
-These are the TPU-native equivalents of the scalar helpers in the reference
+These are the tensor-wide equivalents of the scalar helpers in the reference
 (QB3common.h:42-61 topbit, :127-136 mags/smag, :141-166 step): every function
 operates on whole tensors of microblocks at once.
 """
@@ -70,9 +70,7 @@ def step_flip_index(m, rung):
 def words_u32(words):
     """Flat little-endian uint32 view of the payload words.
 
-    Accepts uint32 (preferred: XLA's u64->u32 bitcast lowers to a ~4.5 GB/s
-    relayout copy on TPU, ~1.9 ms for an 8 MB stream, so hot callers ship
-    the payload as u32 from the host) or uint64 (legacy)."""
+    Accepts uint32 (what the decode kernels are given) or uint64."""
     if words.dtype == jnp.uint32:
         return words.reshape(-1)
     return jax.lax.bitcast_convert_type(words, jnp.uint32).reshape(-1)

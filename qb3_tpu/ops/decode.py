@@ -11,21 +11,15 @@ the band-delta add pass (QB3decode.h:729-737) one vectorized add.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-# read once at import (a live env read inside traced code cannot retarget
-# already-compiled kernels and two call sites could disagree)
-_WAVE_ENV = os.environ.get("QB3_WAVE", "")
 
 from .. import tables as T
 from ..constants import B, B2, curve_offsets
 from ..offsets import KIND_BITS, KIND_CF, KIND_CF0, KIND_IDX, KIND_NORMAL, KIND_ZERO
 from .bitutils import (magsabs, magsmul, peek64, smag, step_flip_index,
-                       topbit, words_u32, words_u64)
+                       words_u32, words_u64)
 from .encode import block_origins
 
 _DEC_GROUP_LEN = jnp.asarray(T.DEC_GROUP[:, :, 0].astype(np.int32))
@@ -68,14 +62,10 @@ def _dec_value(w, rung, use_single):
     return jnp.where(tbl, tv, cv), jnp.where(tbl, tl, cl)
 
 
-_DSW_LEN = jnp.asarray(T.DSW[:, :, 0].astype(np.int32))
-_DSW_DELTA = jnp.asarray(T.DSW[:, :, 1].astype(np.int32))
-
-
 def dsw_arith(w1, ubits: int):
     """Arithmetic codeswitch decode == the DSW table (tables.py _make_dsw),
-    without the table: XLA:TPU lowers even a 16-entry gather to ~10ns/elem
-    scalar loads (measured 102 ms for 6.3M lookups vs 2.6 ms in selects).
+    without the table, as a few selects that fuse into the caller's
+    elementwise kernel.
 
     w1: the stream bits AFTER the change flag (w >> 1), any uint dtype.
     Returns (cs_len incl flag, delta int32), valid where the flag was 1.
@@ -128,28 +118,24 @@ def indexed_meta(words64, glens, nblocks: int, nbands: int, ubits: int):
 
 
 _NREG_IX = {8: 8, 16: 12, 32: 20, 64: 36}
-_GMAX_IX = {8: 150, 16: 280, 32: 540, 64: 1056}
 
 
 def decode_indexed_narrow(words64, glens, nblocks: int, nbands: int,
-                          apply_step: bool, use_pallas: bool, tbits: int = 8,
-                          R: int | None = None, ntiles: int = 1,
-                          tile_words32: int = 0, nreg: int | None = None,
-                          fused: tuple[int, int, int] | None = None):
-    """Fused sidecar-indexed decode, all element widths.
+                          apply_step: bool, tbits: int = 8, ntiles: int = 1,
+                          tile_words32: int = 0, nreg: int | None = None):
+    """Sidecar-indexed decode, all element widths.
 
-    One MXU one-hot gather per group loads its register window; the
-    codeswitch parse, rung prefix sum, and the 16-value wavefront all run
-    on those in-register windows with no further memory access.  Groups
-    span at most 150/280/540/1056 bits (8/12/20/36 u32 regs); 8-bit lanes
-    use 32-bit value windows, wider types 64-bit windows (u64 includes the
-    rung-63 65-bit long form).
+    One direct gather per group loads its register window of NREG u32
+    words; the codeswitch parse, rung prefix sum, and the 16-value
+    wavefront all run on those windows with no further memory access.
+    Groups span at most 150/280/540/1056 bits (8/12/20/36 u32 regs); 8-bit
+    lanes use 32-bit value windows, wider types 64-bit windows (u64
+    includes the rung-63 65-bit long form).
 
     ntiles > 1 decodes a batch of same-shape independent streams in one
-    flat pass (replacing vmap, which serializes the gather kernel): the
-    payloads are concatenated with a fixed stride of tile_words32 uint32
-    words, glens is (ntiles * nblocks * nbands,), and every per-tile state
-    (bit cursor, rung chain) resets at tile boundaries.
+    flat pass: the payloads are concatenated with a fixed stride of
+    tile_words32 uint32 words, glens is (ntiles * nblocks * nbands,), and
+    every per-tile state (bit cursor, rung chain) resets at tile boundaries.
     """
     W = jnp.uint32 if tbits <= 16 else jnp.uint64
     ubits = {8: 3, 16: 4, 32: 5, 64: 6}[tbits]
@@ -168,108 +154,10 @@ def decode_indexed_narrow(words64, glens, nblocks: int, nbands: int,
     off0 = (goff & 31).astype(jnp.int32)
     words32 = words_u32(words64)
 
-    if use_pallas and fused is not None:
-        # fused window-build + walk kernel (fusedwin_pallas)
-        from .fusedwin_pallas import wavefront_fused
-
-        from .fusedwin_pallas import pick_g_blk
-
-        NREGW, R8, R8sub = fused
-        base8 = (goff >> 8).astype(jnp.int32)
-        per_tile = nblocks * nbands
-        G_BLK = pick_g_blk(nbands) or 1024
-        padf = (-ngroups) % G_BLK
-        inkernel = (pick_g_blk(nbands) is not None
-                    and (ntiles == 1 or per_tile % G_BLK == 0))
-        if not inkernel:
-            G_BLK = 1024
-            padf = (-ngroups) % G_BLK
-        if inkernel:
-            # codeswitch parse + band-segmented rung chain run inside the
-            # kernel (grid steps are sequential, so the chain carries
-            # across grid tiles; flat batches reset it every
-            # per_tile/G_BLK steps) — no pre-gather of any stream bits
-            ph = (goff & 255).astype(jnp.int32)
-            if padf:
-                zpadf = jnp.zeros(padf, jnp.int32)
-                base8 = jnp.concatenate(
-                    [base8, jnp.broadcast_to(base8[-1], (padf,))])
-                ph = jnp.concatenate([ph, zpadf])
-            dummy = jnp.zeros_like(ph)
-            g, rung = wavefront_fused(words32, base8, ph, dummy, dummy,
-                                      NREGW, tbits, R8, R8sub, G_BLK,
-                                      nbands=nbands,
-                                      steps_per_tile=(0 if ntiles == 1
-                                                      else per_tile // G_BLK))
-            g, rung = g[:ngroups], rung[:ngroups]
-            kind1 = rung != 0  # group-coded (flip only applies to these)
-        else:
-            # batch layout (per-tile rung resets): parse on XLA with a
-            # 2-word one-hot mini-gather
-            from .gather import gather_slabs_onehot8
-
-            G = 128
-            pad = (-ngroups) % G
-            basep = (jnp.concatenate(
-                [base, jnp.broadcast_to(base[-1], (pad,))]) if pad else base)
-            if R is None:
-                R = -(-((G * _GMAX_IX[tbits]) // 32 + 4 + 130) // 128) * 128
-            w2 = gather_slabs_onehot8(words32, basep, G, 2, R)[:ngroups]
-            sh = off0.astype(jnp.uint32)
-            w0 = jnp.where(sh == 0, w2[:, 0],
-                           (w2[:, 0] >> sh) | (w2[:, 1] << ((32 - sh) & 31)))
-            has_cs = (w0 & 1) == 1
-            dlen, ddelta = dsw_arith(w0 >> 1, ubits)
-            cs_len = jnp.where(has_cs, dlen, 1)
-            delta = jnp.where(has_cs, ddelta, 0)
-            rung = (jnp.cumsum(delta.reshape(ntiles, nblocks, nbands), axis=1)
-                    & nmask).reshape(-1)
-            rung0 = rung == 0
-            flag = ((w0 >> cs_len.astype(jnp.uint32)) & 1).astype(jnp.int32)
-            kind = jnp.where(rung0, jnp.where(flag == 1, 2, 0), 1)
-            off8 = ((goff & 255).astype(jnp.int32) + cs_len
-                    + jnp.where(rung0, 1, 0))
-            if padf:
-                zpadf = jnp.zeros(padf, jnp.int32)
-                base8 = jnp.concatenate(
-                    [base8, jnp.broadcast_to(base8[-1], (padf,))])
-                off8 = jnp.concatenate([off8, zpadf])
-                rung_p = jnp.concatenate([rung, zpadf])
-                kind_p = jnp.concatenate([kind, zpadf])
-            else:
-                rung_p, kind_p = rung, kind
-            g = wavefront_fused(words32, base8, off8, rung_p, kind_p, NREGW,
-                                tbits, R8, R8sub, G_BLK)[:ngroups]
-            kind1 = kind == 1
-        W_out = jnp.uint32 if tbits <= 16 else jnp.uint64
-        g = g.astype(W_out)
-        if apply_step:
-            match, ones = step_flip_index(g, rung)
-            lane = jnp.arange(B2, dtype=jnp.int32)
-            do = kind1 & match & (rung >= 1)
-            flip = (do[:, None] & (lane[None, :] == ones[:, None])
-                    & (ones[:, None] < B2))
-            g = g ^ (jnp.where(flip, 1, 0).astype(W_out)
-                     << rung[:, None].astype(W_out))
-        return g
-
-    # adaptive register count: the format-worst window (36 words for u64)
-    # prices the one-hot gather; the sidecar knows this stream's true max
-    # group span, and typical u64 groups need ~24 words (api._indexed_nreg)
+    # the sidecar knows this stream's true max group span (api._indexed_nreg),
+    # which is usually well under the format-worst window
     NREG = nreg if nreg is not None else _NREG_IX[tbits]
-    gmax = _GMAX_IX[tbits]
-    if use_pallas:
-        # MXU one-hot gather (gather.py): ~4x the masked-sum Pallas kernel
-        from .gather import gather_slabs_onehot8
-
-        G = 128
-        pad = (-ngroups) % G
-        basep = jnp.concatenate([base, jnp.broadcast_to(base[-1], (pad,))]) if pad else base
-        if R is None:
-            R = -(-((G * gmax) // 32 + NREG + 130) // 128) * 128
-        regs_arr = gather_slabs_onehot8(words32, basep, G, NREG, R)[:ngroups]
-    else:
-        regs_arr = words32[base[:, None] + jnp.arange(NREG)[None, :]]
+    regs_arr = words32[base[:, None] + jnp.arange(NREG)[None, :]]
     regs = [regs_arr[:, i] for i in range(NREG)]
     regs += [jnp.zeros_like(base).astype(jnp.uint32),
              jnp.zeros_like(base).astype(jnp.uint32)]
@@ -318,37 +206,6 @@ def decode_indexed_narrow(words64, glens, nblocks: int, nbands: int,
 
     per = {8: 3, 16: 3, 32: 1, 64: 1}[tbits]
     takes = np.minimum(per, B2 - np.arange(0, B2, per))
-
-    if use_pallas and _WAVE_ENV != "xla":
-        # fused Pallas walk: windows + accumulator stay in VMEM for all 16
-        # steps (wavefront_pallas.py) instead of round-tripping HBM per op
-        from .wavefront_pallas import wavefront8, wavefront_wide
-
-        kind = jnp.where(is_group, 1, jnp.where(is_bits, 2, 0))
-        G_BLK = 1024
-        padw = (-ngroups) % G_BLK
-        if padw:
-            zpad = jnp.zeros(padw, jnp.int32)
-            regs_arr = jnp.concatenate(
-                [regs_arr, jnp.zeros((padw, NREG), regs_arr.dtype)])
-            off = jnp.concatenate([off, zpad])
-            rung_p = jnp.concatenate([rung, zpad])
-            kind = jnp.concatenate([kind, zpad])
-        else:
-            rung_p = rung
-        if tbits == 8:
-            g = wavefront8(regs_arr, off, rung_p, kind, NREG, G_BLK)[:ngroups]
-        else:
-            g = wavefront_wide(regs_arr, off, rung_p, kind, NREG, tbits,
-                               G_BLK)[:ngroups]
-        g = g.astype(W)
-        if apply_step:
-            match, ones = step_flip_index(g, rung)
-            lane = jnp.arange(B2, dtype=jnp.int32)
-            do = is_group & match & (rung >= 1)
-            flip = do[:, None] & (lane[None, :] == ones[:, None]) & (ones[:, None] < B2)
-            g = g ^ (jnp.where(flip, 1, 0).astype(W) << rung[:, None].astype(W))
-        return g
 
     if tbits == 8:
         # vectorized bit reader: a u64 accumulator per group, refilled with
@@ -418,16 +275,6 @@ def decode_indexed_narrow(words64, glens, nblocks: int, nbands: int,
         flip = do[:, None] & (lane[None, :] == ones[:, None]) & (ones[:, None] < B2)
         g = g ^ (jnp.where(flip, 1, 0).astype(W) << rung[:, None].astype(W))
     return g
-
-
-def peek32(words32, bitpos):
-    """Gather 32 stream bits at arbitrary bit positions (narrow-type path)."""
-    widx = (bitpos >> 5).astype(jnp.int32)
-    sh = (bitpos & 31).astype(jnp.uint32)
-    w0 = words32[widx]
-    w1 = words32[widx + 1]
-    hi = jnp.where(sh == 0, jnp.uint32(0), w1 << ((jnp.uint32(32) - sh) & 31))
-    return (w0 >> sh) | hi
 
 
 def _vlc_decode_arith(w, rung, W):
@@ -569,9 +416,9 @@ def _vlc_decode_single(w, rung, W):
 
 
 def decode_groups_fused(words64, kind, val_pos, vrung, cf, apply_step: bool,
-                        tbits: int, use_mxu: bool, R: int | None = None):
+                        tbits: int):
     """Register-window wavefront for 8/16-bit streams INCLUDING the extended
-    encodings (CF/index groups): one MXU one-hot gather per group, then the
+    encodings (CF/index groups): one direct gather per group, then the
     16-value walk + the uniques pass run on in-register windows.  Replaces
     decode_groups' per-element peek64 gathers on the hot best-mode path.
     """
@@ -587,18 +434,7 @@ def decode_groups_fused(words64, kind, val_pos, vrung, cf, apply_step: bool,
     base = (val_pos >> 5).astype(jnp.int32)
     off0 = (val_pos & 31).astype(jnp.int32)
     words32 = words_u32(words64)
-    if use_mxu:
-        from .gather import gather_slabs_onehot8
-
-        G = 128
-        pad = (-ngroups) % G
-        basep = jnp.concatenate([base, jnp.broadcast_to(base[-1], (pad,))]) if pad else base
-        if R is None:
-            gmax = 224 if tbits == 8 else 376
-            R = -(-((G * gmax) // 32 + NREG + 130) // 128) * 128
-        regs_arr = gather_slabs_onehot8(words32, basep, G, NREG, R)[:ngroups]
-    else:
-        regs_arr = words32[base[:, None] + jnp.arange(NREG)[None, :]]
+    regs_arr = words32[base[:, None] + jnp.arange(NREG)[None, :]]
     regs = [regs_arr[:, i] for i in range(NREG)]
     regs += [jnp.zeros_like(regs[0]), jnp.zeros_like(regs[0])]
 
@@ -767,43 +603,14 @@ def decode_groups(words64, kind, val_pos, vrung, cf, apply_step: bool,
     return g, pos
 
 
-def _undelta_cumsum_planes(seq, tbits: int, axis: int):
-    """Wrapping prefix sum of mag-sign deltas, exact mod 2^tbits, returned
-    as (lo32, hi32-or-None) planes.
-
-    Truncation commutes with addition, so narrow types run the cumsum in
-    uint32 lanes (TPU-native) regardless of the 64-bit carrier; the 64-bit
-    case splits into two u32 cumsums plus a carry count (cum_lo < lo
-    detects each single-add wrap) — XLA's emulated u64 cumsum was measured
-    at ~2 ms for 1M elements (ftl-u64 1024x1024), ~4x this formulation.
-    Downstream layout ops (inverse curve permute, block transposes) also
-    run per-plane: XLA's u64 relayouts are far below native u32 rate.
-    """
-    if tbits <= 32:
-        return jnp.cumsum(seq.astype(jnp.uint32), axis=axis), None
-    lo = seq.astype(jnp.uint32)
-    hi = (seq >> 32).astype(jnp.uint32)
-    cum_lo = jnp.cumsum(lo, axis=axis)
-    wrap = (cum_lo < lo).astype(jnp.uint32)
-    cum_hi = jnp.cumsum(hi + wrap, axis=axis)
-    return cum_lo, cum_hi
-
-
-def _undelta_cumsum(seq, tbits: int, axis: int):
-    lo, hi = _undelta_cumsum_planes(seq, tbits, axis)
-    if hi is None:
-        return lo
-    return lo.astype(jnp.uint64) | (hi.astype(jnp.uint64) << 32)
-
-
 def _undelta_cumsum_blocks(s, tbits: int):
     """Hierarchical scan-order prefix sum of mag-sign deltas, block-major.
 
     s: (..., nblocks, C, B2) uint64 (leading tile axes allowed).  The scan
     sequence per band is blocks-major-then-lanes; rather than transposing to
-    the (C, nblocks*B2) layout (a full-tensor relayout XLA runs at ~8 GB/s
-    here), the prefix decomposes into an in-lane cumsum plus a block-level
-    carry chain — all in the native layout.  Exact mod 2^tbits: u32 planes
+    the (C, nblocks*B2) layout (a full-tensor relayout), the prefix
+    decomposes into an in-lane cumsum plus a block-level carry chain, all
+    in the native layout.  Exact mod 2^tbits: u32 planes
     with single-add wrap counting (truncation commutes with addition).
     Returns (lo, hi-or-None) u32 planes of the inclusive prefix, same shape.
     """
@@ -842,8 +649,7 @@ def reconstruct_batch(groups, h: int, w: int, nbands: int, order: int,
     -> (ntiles, H, W, C) images, 4-aligned tiles, fresh band state per tile.
 
     One cumsum over a (ntiles, C, nblocks*B2) layout un-deltas every tile at
-    once — vmapping `reconstruct` instead serializes on TPU (the batched
-    gathers lower poorly); this is pure reshapes around the same math.
+    once; this is pure reshapes around the same math as `reconstruct`.
     """
     assert h % B == 0 and w % B == 0, "batch reconstruct requires aligned tiles"
     tbits = np.iinfo(out_dtype).bits
@@ -903,7 +709,7 @@ def reconstruct(groups, entry_prev, h: int, w: int, nbands: int, order: int,
         lane_of[dy, dx] = i
     if h % B == 0 and w % B == 0:
         # aligned: static inverse curve permutation + layout transposes
-        # (64-bit: per-u32-plane — XLA's u64 relayouts are ~3x slower)
+        # (64-bit: per u32 plane)
         inv = lane_of.reshape(-1)  # lane index for raster position dy*B+dx
 
         def relayout(v):

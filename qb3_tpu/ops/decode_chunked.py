@@ -14,8 +14,6 @@ FTL/BASE streams only (no extended encodings), any dtype.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,17 +22,13 @@ from ..constants import B2
 from .decode import _vlc_decode_arith, dsw_arith
 from .bitutils import step_flip_index, words_u32
 
-# read once at import: toggling after first compile cannot retarget cached
-# jitted kernels, so a live env read inside traces would silently disagree
-_WAVE_ENV = os.environ.get("QB3_WAVE", "")
-
 # static register-window sizes per element width: cover one group's worst
 # span (prefix + 16 codes [+ overflow bits]) from any 32-bit phase
 _NREG = {8: 7, 16: 11, 32: 20, 64: 36}
 # values decoded per 64-bit window (per * max_code_bits <= 64)
 _PER = {8: 6, 16: 3, 32: 1, 64: 1}
 
-IC_DEFAULT_K = 8  # blocks per chunk: measured faster than 16, <2% sidecar
+IC_DEFAULT_K = 8  # blocks per chunk (sidecar under 2% of an u8 stream)
 _IC_WIDE = 0x8000  # k_blocks flag: u32 spans (chunk spans can exceed 65535)
 _IC_BEST = 0x4000  # k_blocks flag: best-mode anchors (adds per-band pcf)
 
@@ -94,28 +88,6 @@ def chunk_spans(glens: np.ndarray, rungs: np.ndarray, entry_runbits: np.ndarray,
     entry[0] = entry_runbits
     entry[1:] = rungs[k_blocks - 1 : (nchunks - 1) * k_blocks : k_blocks]
     return spans, entry
-
-
-def decode_chunked_auto(words64, starts, entry_rungs, k_blocks: int,
-                        nblocks: int, nbands: int, apply_step: bool,
-                        tbits: int, maxw: int | None = None,
-                        R: int | None = None, use_pallas: bool = False,
-                        interpret: bool = False):
-    """Dispatch the chunk walk: fused Pallas VMEM kernel for u8 on TPU
-    (chunkwalk_pallas.py), else the XLA select-chain walk below.  The choice
-    is an explicit cache-key parameter (not a live env read)."""
-    if (use_pallas and tbits in (8, 16) and maxw is not None
-            and _WAVE_ENV != "xla"):
-        from .chunkwalk_pallas import chunkwalk8
-
-        nchunks = starts.shape[0]
-        g = chunkwalk8(words64, starts, entry_rungs, maxw, k_blocks, nbands,
-                       apply_step, R=R, interpret=interpret,
-                       ubits=3 if tbits == 8 else 4)
-        return g.reshape(nchunks * k_blocks, nbands, B2)[:nblocks].reshape(
-            nblocks * nbands, B2)
-    return decode_chunked(words64, starts, entry_rungs, k_blocks, nblocks,
-                          nbands, apply_step, tbits)
 
 
 def decode_chunked(words64, starts, entry_rungs, k_blocks: int, nblocks: int,

@@ -3,7 +3,7 @@
 The reference encoder is one serial loop: per 4x4 block, per band, gather in
 curve order, running delta, mag-sign, codeswitch, variable-length push
 (QB3encode.h:376-451).  Every serial dependency in that loop is data-defined,
-so the TPU design is a two-phase data-parallel pipeline:
+so the design here is a two-phase data-parallel pipeline:
 
   Phase A (this module): for *all* microblocks at once, compute the exact
     code words and bit lengths of every emitted symbol.
@@ -63,9 +63,8 @@ def gather_blocks(img, order: int, cband: tuple[int, ...]):
         # static permutation over the 16-lane axis (pure layout, no gather)
         perm = np.array([dy * B + dx for dy, dx in offs], dtype=np.int32)
         if img.dtype.itemsize == 8:
-            # XLA's 64-bit relayout of the block transpose is ~25% slower
-            # than moving u32 lane pairs (measured 3.9 vs 3.1 ms on the
-            # 1024x1024 u64 tile); same permutation, pair-split
+            # the block transpose moves u32 lane pairs instead of u64
+            # elements; same permutation, pair-split
             i32 = jax.lax.bitcast_convert_type(img, jnp.uint32)
             t = i32.reshape(h // B, B, w // B, B, nb, 2)
             t = t.transpose(0, 2, 4, 1, 3, 5).reshape(-1, nb, B2, 2)
@@ -99,10 +98,8 @@ def delta_mags(vals, entry_prev, lanewise=None):
     Two byte-identical formulations: ``lanewise`` computes the lag-1 shift
     without the transpose to the (C, nblocks*B2) sequence layout (lane i's
     predecessor is lane i-1 of the same block; lane 0's, lane B2-1 of the
-    previous block) — that transpose costs a 6x layout penalty under vmap
-    and ~10% on wide types, but the sequence form is ~13% faster for
-    single u8 images (tools/profile_u64_phasea_vmap.py; A/B in the round-5
-    notes).  Default: lanewise for itemsize > 1; batch kernels force it.
+    previous block).  Default: lanewise for itemsize > 1; batch kernels
+    force it.  Which form is faster on the GPU is not measured yet.
     """
     if lanewise is None:
         lanewise = vals.dtype.itemsize > 1
@@ -200,7 +197,7 @@ def _work_dtype(tbits: int):
 
 
 def value_codes_arith(m, rung, skipstep: bool):
-    """Arithmetic (gather-free) group value codes — TPU fast path.
+    """Arithmetic (gather-free) group value codes.
 
     Equivalent to value_codes(): the per-rung tables are just the base VLC
     (QB3encode.h:132-141) composed with a value swap (rung 1: 1<->2, rung 2:

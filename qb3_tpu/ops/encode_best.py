@@ -2,7 +2,7 @@
 
 The reference encode_best (QB3encode.h:618-724) trial-encodes each group and
 rewinds the output stream when the index encoding is smaller — an inherently
-serial construction.  The TPU design computes the exact bit length of every
+serial construction.  This design computes the exact bit length of every
 candidate for all groups at once and *selects* per group, which produces the
 identical stream without ever materializing losing candidates:
 
@@ -149,7 +149,7 @@ def index_candidate(m, rung, oldrung, ubits: int):
     valid = nuniq <= B2 // 2
     rank = jnp.cumsum(is_first, axis=-1) - 1  # rank of first occurrence
     # uid[i] = rank of i's first occurrence; all tiny (16/8-wide) gathers
-    # here are one-hot sums — XLA:TPU per-element gathers cost ~10ns each
+    # here are one-hot sums that fuse with their neighbours
     uid = jnp.sum(jnp.where(eq & is_first[..., None, :], rank[..., None, :], 0),
                   axis=-1)  # (nb, C, 16) in 0..15
     uid8 = jnp.clip(uid, 0, B2 // 2 - 1)  # safe when invalid

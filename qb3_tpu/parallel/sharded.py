@@ -1,7 +1,7 @@
 """Multi-chip QB3: tile-row sharding over a device mesh.
 
 The reference is strictly single-threaded (SURVEY.md §2.11); extent scaling
-is the TPU-native axis the reference lacks.  The image is sharded in
+over devices is the axis the reference lacks.  The image is sharded in
 block-row-aligned strips over a 1-D mesh.  The serial band state at strip
 boundaries is *data-defined*, so it needs no sequential chain:
 
@@ -147,9 +147,9 @@ def _sharded_kernel(shape, npdtype, order, cband, best, skipstep, n_words, n_dev
 @functools.lru_cache(maxsize=16)
 def _sharded_scatter_kernel(shape, npdtype, order, cband, skipstep, n_words,
                             n_dev):
-    """Pod-shape encode: the stitch runs inside shard_map via
-    scatter_stitch_shard (one boundary u64 per link instead of the
-    O(stream)-per-link implicit all-gather of stitch_words_device)."""
+    """Multi-device encode with the stitch inside shard_map via
+    scatter_stitch_shard (one boundary u64 per device pair instead of the
+    O(stream) implicit all-gather of stitch_words_device)."""
     if len(jax.devices()) < n_dev:
         raise RuntimeError(f"need {n_dev} devices")
     from ..stitch import scatter_stitch_shard
@@ -176,7 +176,7 @@ def encode_fast_sharded_scatter(img: np.ndarray, n_dev: int,
                                 skipstep: bool = True):
     """encode_fast_sharded with the reduce-scatter-style stitch: every
     device keeps only its own word span of the final stream; the host
-    concatenates at word granularity.  Per-ICI-link stitch traffic is
+    concatenates at word granularity.  Stitch traffic per device is
     8 bytes (one boundary word) + the 8-byte totals all-gather, vs
     O(stream bytes) for the all-gather stitch (doc/SCALING.md item 1).
     Byte-exact with the single-device stream."""
@@ -309,32 +309,21 @@ def encode_sharded(img: np.ndarray, n_dev: int, mode: int | None = None,
     return result
 
 
-def encode_tiles_sharded(tiles: np.ndarray, n_batch: int, n_rows: int,
-                         order: int = HILBERT,
-                         cband: tuple[int, ...] | None = None,
-                         skipstep: bool = True) -> list[bytes]:
-    """2-D mesh variant: a (N, H, W, C) batch sharded over a
-    ("batch", "rows") mesh — tiles data-parallel on one axis, each tile's
-    rows model-parallel on the other (fresh per-tile band state, matching
-    batch.encode_tiles).  Returns one payload per tile, byte-exact with
-    the single-device streams."""
+@functools.lru_cache(maxsize=16)
+def _tiles_sharded_kernel(shape, npdtype, n_batch, n_rows, order, cband,
+                          skipstep):
     from ..api import DT_FROM_NP, max_encoded_size
     from ..stitch import stitch_words_device
 
-    n, h, w, nb = tiles.shape
-    if len(jax.devices()) < n_batch * n_rows:
-        raise RuntimeError(f"need {n_batch * n_rows} devices")
-    if n % n_batch or h % (B * n_rows):
-        raise QB3ShapeError("batch/rows must split evenly over the mesh")
-    if cband is None:
-        cband = tuple(range(nb))
+    n, h, w, nb = shape
     mesh = Mesh(np.array(jax.devices()[: n_batch * n_rows]).reshape(
         n_batch, n_rows), ("batch", "rows"))
-    ubits = ubits_for(tiles.dtype.itemsize)
-    maxbits = group_bits_bound(tiles.dtype.itemsize * 8, best=False)
-    n_words = (max_encoded_size(w, h // n_rows, nb, DT_FROM_NP[tiles.dtype]) + 3) // 4 + 2
-    fn = _shard_encode_fn(order, tuple(cband), skipstep, ubits, n_words,
-                          "rows", maxbits)
+    itemsize = np.dtype(npdtype).itemsize
+    n_words = (max_encoded_size(w, h // n_rows, nb,
+                                DT_FROM_NP[np.dtype(npdtype)]) + 3) // 4 + 2
+    fn = _shard_encode_fn(order, cband, skipstep, ubits_for(itemsize),
+                          n_words, "rows", group_bits_bound(itemsize * 8,
+                                                            best=False))
 
     def tilewise(batch_local):  # (N_l, H_l, W, C) on this device
         outs = jax.vmap(fn)(batch_local)
@@ -348,13 +337,34 @@ def encode_tiles_sharded(tiles: np.ndarray, n_batch: int, n_rows: int,
 
     def run(arr):
         words, totals = mapped(arr)  # (N, n_rows, NW), (N, n_rows)
-        st = jax.vmap(lambda ws, ts: stitch_words_device(ws, ts, nw_out))(
+        return jax.vmap(lambda ws, ts: stitch_words_device(ws, ts, nw_out))(
             words, totals)
-        return st
 
+    return jax.jit(run), mesh
+
+
+def encode_tiles_sharded(tiles: np.ndarray, n_batch: int, n_rows: int,
+                         order: int = HILBERT,
+                         cband: tuple[int, ...] | None = None,
+                         skipstep: bool = True) -> list[bytes]:
+    """2-D mesh variant: a (N, H, W, C) batch sharded over a
+    ("batch", "rows") mesh — tiles data-parallel on one axis, each tile's
+    rows split over the other (fresh per-tile band state, matching
+    batch.encode_tiles).  Returns one payload per tile, byte-exact with
+    the single-device streams."""
+    n, h, w, nb = tiles.shape
+    if len(jax.devices()) < n_batch * n_rows:
+        raise RuntimeError(f"need {n_batch * n_rows} devices")
+    if n % n_batch or h % (B * n_rows):
+        raise QB3ShapeError("batch/rows must split evenly over the mesh")
+    if cband is None:
+        cband = tuple(range(nb))
+    kern, mesh = _tiles_sharded_kernel(tiles.shape, tiles.dtype.name,
+                                       n_batch, n_rows, order, tuple(cband),
+                                       skipstep)
     arr = jax.device_put(jnp.asarray(tiles),
                          NamedSharding(mesh, P("batch", "rows")))
-    stitched, total = jax.jit(run)(arr)
+    stitched, total = kern(arr)
     stitched, total = np.asarray(stitched), np.asarray(total)
     return [stitched[i].view(np.uint8)[: (int(total[i]) + 7) // 8].tobytes()
             for i in range(n)]
@@ -439,7 +449,7 @@ def _shard_decode_best_fn(order, cband, tbits, nblocks_l, nbands, h_l, w, axis):
     def fn(win64, kind, val_pos, vrung, cf):
         if tbits <= 16:
             g = decode_groups_fused(win64, kind, val_pos, vrung, cf, True,
-                                    tbits, jax.default_backend() == "tpu")
+                                    tbits)
         else:
             g, _ = decode_groups(win64, kind, val_pos, vrung, cf, True)
         return _finish_shard(g, nblocks_l, nbands, h_l, w, order, cband,

@@ -1,7 +1,7 @@
 """Profiling hooks (SURVEY §5 tracing/observability).
 
 The reference keeps timing in its callers (cqb3.cpp:478-481 MB/s prints);
-the TPU equivalent is a `jax.profiler` trace plus the same rate counters:
+the device equivalent is a `jax.profiler` trace plus the same rate counters:
 
     with qb3_tpu.profiling.trace("/tmp/qb3-trace"):
         stream = qb3_tpu.encode(img)

@@ -18,17 +18,13 @@ from __future__ import annotations
 
 import numpy as np
 
-try:
-    from . import native as _native
-    _HAVE_NATIVE = _native.available()
-except Exception:  # pragma: no cover - native helper optional
-    _HAVE_NATIVE = False
+from . import native as _native
 
 _MAX_RUN = 258  # 4 implied zeros + a 0..0xfe extension count
 
 
 def rle0_encode(data: bytes) -> bytes:
-    if _HAVE_NATIVE:
+    if _native.available():
         return _native.rle0_encode(data)
     return _rle0_encode_py(data)
 
@@ -81,7 +77,7 @@ def _rle0_encode_py(data: bytes) -> bytes:
 
 def rle0_decode(data: bytes, expected: int) -> bytes:
     """Expand; raises on overflow past ``expected`` bytes (malicious input guard)."""
-    if _HAVE_NATIVE:
+    if _native.available():
         return _native.rle0_decode(data, expected)
     return _rle0_decode_py(data, expected)
 
@@ -111,7 +107,7 @@ def _rle0_decode_py(data: bytes, expected: int) -> bytes:
 
 def rle0_decoded_size(data: bytes) -> int:
     """Size after expansion (QB3decode.cpp:294-307)."""
-    if _HAVE_NATIVE:
+    if _native.available():
         return _native.rle0_size(data)
     n = len(data)
     buf = np.frombuffer(data, np.uint8)

@@ -59,12 +59,12 @@ def stitch_bytes(parts) -> bytes:
 
 
 def scatter_stitch_shard(words32, nbits, axis):
-    """Pod-shape stitch, run INSIDE shard_map: each shard phase-shifts its
+    """Multi-device stitch, run INSIDE shard_map: each shard phase-shifts its
     packed bits to the global bit offset and keeps its OWN word span; the
     only inter-device data is the all-gather of per-shard bit totals (8 B
-    each).  Replaces the post-shard_map stitch (stitch_words_device), whose
-    implicit all-gather moves O(stream bytes) per ICI link
-    (doc/SCALING.md item 1).
+    each) and one boundary word.  Replaces the post-shard_map stitch
+    (stitch_words_device), whose implicit all-gather moves O(stream bytes)
+    to every device (doc/SCALING.md item 1).
 
     words32: (NW32,) uint32 local packed stream (bits past nbits garbage);
     nbits: local bit count (scalar).  Returns (own (NW64+1,) u64 words,

@@ -280,7 +280,7 @@ class StripDecoder:
         import jax.numpy as jnp
 
         from . import native
-        from .api import _decode_kernel, _window_R_from_pos, dequantize
+        from .api import _decode_kernel, dequantize
         from .offsets import parse_offsets
 
         info = self.info
@@ -309,11 +309,9 @@ class StripDecoder:
             meta = parse_offsets(self._data, nblocks, nb, tsize, info.mode,
                                  self._runbits, self._pcf, self._bit)
         img = None
-        tb = tsize * 8
-        R = _window_R_from_pos(meta["val_pos"], tb) if tb <= 16 else None
         kern = _decode_kernel(nblocks, nb, hs, w, info.order or HILBERT,
                               tuple(info.cband), info.mode != Mode.FTL,
-                              np.dtype(self._uns_dt).name, self._n_words, R)
+                              np.dtype(self._uns_dt).name, self._n_words)
         img, exit_prev = kern(
             self._dwords,
             jnp.asarray(meta["kind"].reshape(-1)),

@@ -1,7 +1,7 @@
 """ctypes wrapper around the reference libQB3.so — the conformance oracle.
 
 Used only by the test/bench suite to produce golden streams and to verify
-that streams emitted by the TPU engine decode bit-exactly with the original
+that streams emitted by this engine decode bit-exactly with the original
 implementation.  Build the library first:
 
     cmake -S /root/reference -B /root/repo/.ref_build -G Ninja \

@@ -52,7 +52,7 @@ def test_config3_dem_quanta_best():
 
 
 def test_config4_landsat_tiles_batch():
-    """8-band 16-bit tiles, interleaved, multi-tile batch per chip."""
+    """8-band 16-bit tiles, interleaved, multi-tile batch per device."""
     tiles = np.stack([
         corpus.to_type(corpus.natural8(64, 64, 8, seed=410 + i), np.uint16, 257)
         for i in range(4)])
@@ -63,7 +63,7 @@ def test_config4_landsat_tiles_batch():
 
 
 def test_config5_u64_sharded():
-    """64-bit raster sharded across a (virtual) pod slice, byte-exact."""
+    """64-bit raster sharded across a (virtual) device mesh, byte-exact."""
     img = corpus.to_type(corpus.natural8(64, 64, 1, seed=420), np.uint64, 1 << 40)
     from qb3_tpu import container
     single = qb3_tpu.encode(img, mode=Mode.FTL)

@@ -103,55 +103,58 @@ def test_signed():
     roundtrip_ic(img, Mode.FTL)
 
 
-# ---------------------------------------------------------------- Pallas walk
+# ------------------------------------------------------------ chunk walk
 
-def _pallas_walk_case(img, mode, k=8):
-    """Fused Pallas chunk walk (interpret mode) must match the XLA walk
-    bit-for-bit (chunkwalk_pallas.py vs decode_chunked.py)."""
+def _chunk_walk_case(img, mode):
+    """The XLA chunk walk (decode_chunked) must give the same groups as the
+    ix-sidecar decode of the same payload, and the ic stream must decode
+    to the input through qb3_tpu.decode and lite.decode."""
     import jax.numpy as jnp
 
-    from qb3_tpu.ops.chunkwalk_pallas import chunkwalk8, ic_maxw, ic_window_R
+    from qb3_tpu import lite
+    from qb3_tpu.ops.decode import decode_indexed_narrow, payload_words
     from qb3_tpu.ops.decode_chunked import decode_chunked, parse_ic
-    from qb3_tpu.ops.decode import payload_words
 
     h, w = img.shape[:2]
     nb = img.shape[2] if img.ndim == 3 else 1
     stream = qb3_tpu.encode(img, mode=mode, index="ic")
     info = container.parse_headers(stream)
+    info_ix = container.parse_headers(
+        qb3_tpu.encode(img, mode=mode, index=True))
     nblocks = ((h + 3) // 4) * ((w + 3) // 4)
     kk, starts, entry, total = parse_ic(info.index_chunked, nblocks, nb)
     words = jnp.asarray(payload_words(stream[info.data_offset:]))
-    spans = np.diff(np.append(starts, total))
-    maxw = ic_maxw(spans)
-    sj = jnp.asarray(starts.astype(np.int32))
-    ej = jnp.asarray(entry)
     tbits = img.dtype.itemsize * 8
-    ref = np.asarray(decode_chunked(words, sj, ej, kk, nblocks, nb,
+    got = np.asarray(decode_chunked(words, jnp.asarray(starts.astype(np.int32)),
+                                    jnp.asarray(entry), kk, nblocks, nb,
                                     mode != Mode.FTL, tbits))
-    got = np.asarray(chunkwalk8(words, sj, ej, maxw, kk, nb,
-                                mode != Mode.FTL, G_BLK=128, interpret=True,
-                                R=ic_window_R(starts, maxw),
-                                ubits=3 if tbits == 8 else 4))
-    got = got.reshape(-1, nb, 16)[:nblocks].reshape(nblocks * nb, 16)
+    glens = np.frombuffer(info_ix.index, dtype="<u2").astype(np.int32)
+    ref = np.asarray(decode_indexed_narrow(words, jnp.asarray(glens), nblocks,
+                                           nb, mode != Mode.FTL, tbits))
     np.testing.assert_array_equal(got, ref)
+    dec = qb3_tpu.Decoder(stream)
+    np.testing.assert_array_equal(dec.read_data().reshape(img.shape), img)
+    assert dec.decode_path == "ic"
+    np.testing.assert_array_equal(lite.decode(stream)[0].reshape(img.shape),
+                                  img)
 
 
 @pytest.mark.parametrize("mode", [Mode.FTL, Mode.BASE_H, Mode.BASE_Z])
-def test_pallas_walk_modes(mode):
-    _pallas_walk_case(corpus.natural8(64, 48, 3, seed=90), mode)
+def test_chunk_walk_modes(mode):
+    _chunk_walk_case(corpus.natural8(64, 48, 3, seed=90), mode)
 
 
 @pytest.mark.parametrize("mode,mult", [
     (Mode.FTL, 257), (Mode.BASE_H, 300), (Mode.FTL, 65535)])
-def test_pallas_walk_u16(mode, mult):
+def test_chunk_walk_u16(mode, mult):
     img = corpus.to_type(corpus.natural8(64, 48, 2, seed=92), np.uint16, mult)
-    _pallas_walk_case(img, mode)
+    _chunk_walk_case(img, mode)
 
 
-def test_pallas_walk_high_rungs():
+def test_chunk_walk_high_rungs():
     # 0<->255 spikes plant rung-7 groups (9-bit codes, the widest u8 form)
     # without tripping the stored fallback on fully random data
     img = corpus.natural8(48, 64, 1, seed=91)
     img[::8, ::8] = 255
     img[4::8, 2::8] = 0
-    _pallas_walk_case(img, Mode.FTL)
+    _chunk_walk_case(img, Mode.FTL)

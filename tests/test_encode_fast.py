@@ -93,27 +93,3 @@ def test_cross_decode_by_reference():
     ours = qb3_tpu.encode(img, mode=Mode.FTL)
     dec, info = refqb3.ref_decode(ours)
     np.testing.assert_array_equal(dec, img)
-
-
-def test_pack_onehot_matches_scatter():
-    """MXU one-hot placement must produce the identical word stream."""
-    import jax.numpy as jnp
-
-    from qb3_tpu.api import max_encoded_size
-    from qb3_tpu.constants import HILBERT
-    from qb3_tpu.ops.bitpack import (group_bits_bound, pack_groups,
-                                     pack_groups_onehot)
-    from qb3_tpu.ops.encode import encode_fast_blocks
-
-    img = corpus.natural8(96, 64, 3, seed=150)
-    codes, lens, _, _ = encode_fast_blocks(
-        jnp.asarray(img), jnp.zeros(3, jnp.uint8), jnp.zeros(3, jnp.int32),
-        HILBERT, (1, 1, 1), True)
-    n_words = (max_encoded_size(64, 96, 3, 0) + 3) // 4 + 2
-    maxbits = group_bits_bound(8, best=False)
-    w1, t1, g1 = pack_groups(codes, lens, n_words, maxbits)
-    w2, t2, g2 = pack_groups_onehot(codes, lens, n_words, maxbits)
-    assert int(t1) == int(t2)
-    nw = (int(t1) + 31) // 32
-    np.testing.assert_array_equal(np.asarray(w1)[:nw], np.asarray(w2)[:nw])
-    np.testing.assert_array_equal(np.asarray(g1), np.asarray(g2))

@@ -3,10 +3,15 @@ C++ helper shares a single source of truth with the JAX kernels."""
 
 import os
 import sys
+import types
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import numpy as np
 
-import numpy as np  # noqa: E402
+# Load qb3_tpu.tables without running the package __init__: importing the
+# package loads JAX and the native helper, whose build runs this script.
+_pkg = types.ModuleType("qb3_tpu")
+_pkg.__path__ = [os.path.join(os.path.dirname(__file__), "..", "qb3_tpu")]
+sys.modules.setdefault("qb3_tpu", _pkg)
 
 from qb3_tpu import tables as T  # noqa: E402
 

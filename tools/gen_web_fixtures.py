@@ -12,23 +12,17 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 
 
-def main():
-    import qb3_tpu
+def fixture_cases():
+    """The pinned conformance cases: [(name, image, mode, encode kwargs)].
+    Every dtype, FTL/BASE/BEST, quanta, RLE, small and stored images, core
+    bands and the ic sidecar; the images come from fixed seeds."""
     from qb3_tpu.constants import Mode
     from tests import corpus
 
     cases = []
 
     def add(name, img, mode, **kw):
-        stream = qb3_tpu.encode(img, mode=mode, **kw)
-        dec, _ = qb3_tpu.decode(stream)
-        cases.append({
-            "name": name,
-            "stream": base64.b64encode(stream).decode(),
-            "raw": base64.b64encode(
-                np.ascontiguousarray(dec).tobytes()).decode(),
-            "dtype": str(img.dtype), "shape": list(dec.shape),
-        })
+        cases.append((name, img, mode, kw))
 
     add("ftl-u8-rgb", corpus.natural8(24, 20, 3, seed=200), Mode.FTL)
     add("base-h-u8", corpus.natural8(20, 24, 1, seed=201), Mode.BASE_H)
@@ -68,8 +62,28 @@ def main():
     add("sidecar-ic", corpus.natural8(24, 24, 1, seed=218), Mode.FTL,
         index="ic")
 
-    os.makedirs(os.path.join("web", "test"), exist_ok=True)
-    with open(os.path.join("web", "test", "fixtures.js"), "w") as f:
+    return cases
+
+
+def main():
+    import qb3_tpu
+
+    cases = []
+    for name, img, mode, kw in fixture_cases():
+        stream = qb3_tpu.encode(img, mode=mode, **kw)
+        dec, _ = qb3_tpu.decode(stream)
+        cases.append({
+            "name": name,
+            "stream": base64.b64encode(stream).decode(),
+            "raw": base64.b64encode(
+                np.ascontiguousarray(dec).tobytes()).decode(),
+            "dtype": str(img.dtype), "shape": list(dec.shape),
+        })
+
+    out = os.environ.get("QB3_FIXTURES_OUT",
+                         os.path.join("web", "test", "fixtures.js"))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         f.write("// generated by tools/gen_web_fixtures.py\n")
         f.write("export const FIXTURES = ")
         f.write(json.dumps(cases, indent=0))

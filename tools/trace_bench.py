@@ -1,11 +1,17 @@
-"""Capture a jax.profiler trace of the cached bench kernels and summarize
-per-op device time from the trace events (no TensorBoard needed)."""
+"""Capture a jax.profiler trace of the FTL encode and ix decode kernels
+(512x512x3 u8) on the GPU and summarize time per trace event (no
+TensorBoard needed).  Prints the device and the trace directory; needs a
+GPU.
+
+    python tools/trace_bench.py
+"""
 
 import glob
 import gzip
 import json
 import os
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -15,6 +21,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main():
+    from qb3_tpu.benchutil import device_info
+
+    print("device:", json.dumps(device_info()), flush=True)
     import jax
     import jax.numpy as jnp
 
@@ -51,8 +60,7 @@ def main():
     zprev = jnp.zeros(nb, dtype=jnp.uint64)
     jax.block_until_ready(dk(dwords, dglens, zprev))
 
-    tdir = "/tmp/qb3trace"
-    os.system(f"rm -rf {tdir}")
+    tdir = tempfile.mkdtemp(prefix="qb3trace-")
     with jax.profiler.trace(tdir):
         for _ in range(3):
             jax.block_until_ready(ek(dimg, p0, r0))
@@ -62,6 +70,7 @@ def main():
 
     # parse the trace
     files = glob.glob(f"{tdir}/**/*.trace.json.gz", recursive=True)
+    print("trace directory:", tdir)
     print("trace files:", files)
     agg = defaultdict(float)
     cnt = defaultdict(int)
